@@ -1,4 +1,4 @@
-// mtr_host — native host runtime for mtr_tpu.
+// mtr_host — native host runtime for mtr.
 //
 // Implements the sequential per-read logic that surrounds the device
 // kernels: DI local-extrema pairing, redundant-range removal, greedy De
@@ -1148,7 +1148,7 @@ struct DPOut {
 // Vectorized row fill (16 int32 lanes).  The within-row deletion chain
 // v[j] = max(base[j], v[j-1]-ip) — broken at match cells, which take
 // diag+mg unconditionally but still feed the chain — is resolved with
-// the same encoding the TPU kernel uses (ops/wrap_dp_fused2w.py): a
+// an encoding the device engines share in spirit: a
 // single inclusive prefix-MAX over enc = base + ip*j + seg*SEGK, where
 // seg counts match cells at positions <= j.  A chain l -> j is legal
 // iff no match lies in (l, j], i.e. seg[l] == seg[j]; any illegal lane

@@ -27,10 +27,10 @@ def main():
     ap.add_argument("--seed", type=int, default=12345)
     args = ap.parse_args()
 
-    from mtr_tpu.testutil.rand_seq import write_fasta
-    from mtr_tpu.testutil.evaluators import count_match, comp_dp
-    from mtr_tpu.config import MTRConfig
-    from mtr_tpu.pipeline import run_file
+    from mtr.testutil.rand_seq import write_fasta
+    from mtr.testutil.evaluators import count_match, comp_dp
+    from mtr.config import MTRConfig
+    from mtr.pipeline import run_file
 
     sub, ins, dele = 1.6, 9.0, 3.8  # test.sh:12-14
     for i in (int(x) for x in args.lengths.split(",")):

@@ -6,7 +6,7 @@ Two measurements, both honest about this container's 2 physical cores:
 1. PROCESS scaling (the multi-host axis): reads/s for the same fixed
    workload under 1 process vs 2 real jax.distributed processes
    (run_file_sharded round-robin shards + deterministic merge), each
-   process pinned to ONE native thread (MTR_TPU_THREADS=1) so the
+   process pinned to ONE native thread (MTR_THREADS=1) so the
    baseline is genuinely single-threaded.  This is the
    embarrassingly-parallel axis the reference processes sequentially
    (handle_one_file.c:281-287).
@@ -44,45 +44,38 @@ def ensure_fixture():
     if os.path.exists(FASTA):
         return
     sys.path.insert(0, REPO)
-    from mtr_tpu.testutil.rand_seq import write_fasta
+    from mtr.testutil.rand_seq import write_fasta
 
     write_fasta(FASTA, FASTA + ".units", 200, 50, 9.7, 2.9, 7.5,
                 4000, 4000, N_READS, seed=777)
 
 
-def worker(pid: int, n: int, port: int, prefix: str,
-           backend: str = "host", platform: str = "cpu") -> int:
-    if platform == "cpu":
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        import jax
+def worker(pid: int, n: int, port: int, prefix: str) -> int:
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
 
-        jax.config.update("jax_platforms", "cpu")
-        if n > 1:
-            jax.distributed.initialize(
-                coordinator_address=f"127.0.0.1:{port}",
-                num_processes=n, process_id=pid,
-            )
-    # platform == "tpu": the accelerator runtime multiplexes the chip
-    # across processes; shard assignment is explicit, so no
-    # jax.distributed coordinator is required (and initializing one over
-    # a single shared chip would mis-declare the topology)
-    from mtr_tpu.config import MTRConfig
-    from mtr_tpu.parallel.distributed import run_file_sharded
+    jax.config.update("jax_platforms", "cpu")
+    if n > 1:
+        jax.distributed.initialize(
+            coordinator_address=f"127.0.0.1:{port}",
+            num_processes=n, process_id=pid,
+        )
+    from mtr.config import MTRConfig
+    from mtr.parallel.distributed import run_file_sharded
 
     t0 = time.time()
-    run_file_sharded(FASTA, prefix, MTRConfig(backend=backend),
+    run_file_sharded(FASTA, prefix, MTRConfig(backend="host"),
                      process_index=pid, process_count=n)
     print(json.dumps({"dt": time.time() - t0}))
     return 0
 
 
 def run_dp_sharded(n: int, total_b: int = 2048) -> dict:
-    """DP-path scaling (VERDICT r3 #3): a FIXED wrap-DP chunk workload
-    (total_b jobs, unit 100, rep 2048) sharded over an n-virtual-device
-    mesh the way ShardedWrapDPBatcher shards every chunk (shard_map over
-    the 'dp' axis, batch dim split, flat reads replicated).  The engine
-    is the pure-XLA counts kernel so CPU devices run real compiled code
-    (Pallas interpret-mode timing would be meaningless).
+    """DP-path scaling: a FIXED wrap-DP chunk (total_b jobs, unit 100,
+    rep 2048) sharded over an n-virtual-device mesh exactly as
+    ShardedWrapDPBatcher shards every chunk (parallel/mesh.py
+    sharded_counts_fn: batch dim split, flat reads replicated), on the
+    XLA counts engine so CPU devices run real compiled code.
 
     Returns wall time of the sharded dispatch AND the per-device compute
     time for one local shard (total_b/n jobs), the latter measured in a
@@ -90,66 +83,34 @@ def run_dp_sharded(n: int, total_b: int = 2048) -> dict:
     xla_force_host_platform_device_count=n XLA:CPU divides the host's
     intra-op threadpool across the n virtual devices, so timing "one
     device while the others idle" inside the n-device process slows
-    with n — a host artifact a real chip does not have (each chip owns
-    its compute).  On a 2-core host the n>=4 sharded walls are
-    core-limited by construction; the shard row is the transferable
-    per-chip number."""
+    with n — a host artifact a real device does not have."""
     code = (
         "import os, time, json, numpy as np\n"
         "os.environ['JAX_PLATFORMS']='cpu'\n"
         "import jax; jax.config.update('jax_platforms','cpu')\n"
-        "import jax.numpy as jnp\n"
-        "from jax.sharding import PartitionSpec as P\n"
-        "from jax import shard_map\n"
         f"n = {n}\n"
         f"B = {total_b}\n"
         "assert jax.device_count() == n, jax.devices()\n"
-        "from mtr_tpu.parallel.mesh import make_mesh\n"
-        "from mtr_tpu.ops.wrap_dp_xla import make_wrap_dp_counts_xla\n"
+        "from mtr.parallel.mesh import make_mesh, sharded_counts_fn\n"
+        "from mtr.ops.wrap_dp_counts import counts_fn\n"
+        "from mtr.testutil.dp_jobs import pack_jobs\n"
         "rng = np.random.default_rng(0)\n"
         "unit_len, rep_len, r_pad = 100, 2048, 4096\n"
         "unit = rng.integers(0, 4, unit_len)\n"
         "rep = np.tile(unit, rep_len // unit_len + 1)[:rep_len]\n"
         "def inputs(b):\n"
-        "    repa = np.full((b, r_pad), -1, np.int8)\n"
-        "    repa[:, :rep_len] = rep\n"
-        "    units = np.full((b, 128), -2, np.int8)\n"
-        "    units[:, :unit_len] = unit\n"
-        "    scal = np.zeros((b, 8), np.int32)\n"
-        "    scal[:, 0] = rep_len; scal[:, 1] = unit_len\n"
-        "    scal[:, 2:5] = (1, 1, 3)\n"
-        "    return scal, repa, units\n"
+        "    return pack_jobs([(rep, unit, (1, 1, 3))] * b, b, 128, r_pad)\n"
         "def best_of(f, a, k=3):\n"
         "    np.asarray(f(*a)); ts = []\n"
         "    for _ in range(k):\n"
         "        t0 = time.time(); np.asarray(f(*a)); ts.append(time.time() - t0)\n"
         "    return min(ts)\n"
-        "lb = B // n\n"
-        "# the SHIPPING sharded batcher dispatches fixed b_sub-sized\n"
-        "# sub-chunks riding the kernel grid (pipeline.SUB_B), so the\n"
-        "# per-device compiled shape is INDEPENDENT of n; a monolithic\n"
-        "# (B/n)-shaped local kernel (round-4 bench) conflated XLA's\n"
-        "# batch-size-dependent codegen with shard efficiency (the\n"
-        "# 0.676 n=4 dip, VERDICT r4 #7).  Measure what ships.\n"
-        "SUB = 256\n"
-        "assert lb % SUB == 0\n"
-        "sub = make_wrap_dp_counts_xla(SUB, 128, r_pad)\n"
-        "def inner(scal, rep, unit):\n"
-        "    ns = scal.shape[0] // SUB\n"
-        "    args = (scal.reshape(ns, SUB, -1),\n"
-        "            rep.reshape(ns, SUB, -1), unit.reshape(ns, SUB, -1))\n"
-        "    out = jax.lax.map(lambda a: sub(*a), args)\n"
-        "    return out.reshape(ns * SUB, -1)\n"
-        "inner = jax.jit(inner)\n"
         "if MODE == 'shard':\n"
-        "    t = best_of(inner, inputs(lb))\n"
+        "    t = best_of(counts_fn('xla', B // n, 128, r_pad), inputs(B // n))\n"
         "elif n == 1:\n"
-        "    t = best_of(inner, inputs(B))\n"
+        "    t = best_of(counts_fn('xla', B, 128, r_pad), inputs(B))\n"
         "else:\n"
-        "    mesh = make_mesh(n)\n"
-        "    fn = jax.jit(shard_map(inner, mesh=mesh,\n"
-        "        in_specs=(P('dp'), P('dp'), P('dp')), out_specs=P('dp'),\n"
-        "        check_vma=False))\n"
+        "    fn = sharded_counts_fn(make_mesh(n), 'xla', B, 128, r_pad)\n"
         "    t = best_of(fn, inputs(B))\n"
         "print(json.dumps({'t': t}))\n"
     )
@@ -171,16 +132,7 @@ def run_dp_sharded(n: int, total_b: int = 2048) -> dict:
     return {"t_wall": run("wall"), "t_shard": run("shard")}
 
 
-def _tpu_available() -> bool:
-    r = subprocess.run(
-        [sys.executable, "-c",
-         "import jax; print(jax.default_backend())"],
-        capture_output=True, timeout=300, cwd=REPO)
-    return r.returncode == 0 and b"cpu" not in r.stdout
-
-
-def run_procs(n: int, backend: str = "host",
-              platform: str = "cpu") -> float:
+def run_procs(n: int) -> float:
     """Compute time for the whole workload under n processes: the MAX of
     the workers' self-reported run_file_sharded times.  Interpreter +
     jax.distributed startup (a per-process constant, ~2 s here) is
@@ -189,26 +141,19 @@ def run_procs(n: int, backend: str = "host",
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    prefix = f"/tmp/mtr_scaling_p{n}_{backend}_{platform}"
-    env = {**os.environ}
-    if platform == "cpu":
-        env["MTR_TPU_THREADS"] = "1"
-        env.pop("XLA_FLAGS", None)
+    prefix = f"/tmp/mtr_scaling_p{n}"
+    env = {**os.environ, "MTR_THREADS": "1"}
+    env.pop("XLA_FLAGS", None)
     ncores = os.cpu_count() or 1
-    pin = platform == "cpu"
     procs = [
         subprocess.Popen(
-            # cpu platform: one core per process — without pinning, a
-            # single process spreads over every core (pipeline overlap
-            # thread + JAX pool) and the 1-process baseline silently
-            # becomes multi-core, understating scaling efficiency.
-            # tpu platform: no pinning (the hybrid host leg + JAX
-            # runtime need both cores; the chip is the shared resource
-            # being measured)
-            ((["taskset", "-c", str(pid % ncores)] if pin else [])
-             + [sys.executable, os.path.abspath(__file__),
-                "--worker", str(pid), str(n), str(port), prefix,
-                backend, platform]),
+            # one core per process — without pinning, a single process
+            # spreads over every core (pipeline overlap thread + JAX
+            # pool) and the 1-process baseline silently becomes
+            # multi-core, understating scaling efficiency
+            ["taskset", "-c", str(pid % ncores), sys.executable,
+             os.path.abspath(__file__), "--worker", str(pid), str(n),
+             str(port), prefix],
             cwd=REPO, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         )
@@ -230,8 +175,8 @@ def run_vdev(n: int) -> float:
         "os.environ['JAX_PLATFORMS']='cpu'\n"
         "import jax; jax.config.update('jax_platforms','cpu')\n"
         f"assert jax.device_count() == {n}, jax.devices()\n"
-        "from mtr_tpu.parallel.mesh import make_mesh\n"
-        "from mtr_tpu.ops.directional_index import make_sharded_sliding_l1\n"
+        "from mtr.parallel.mesh import make_mesh\n"
+        "from mtr.ops.directional_index import make_sharded_sliding_l1\n"
         f"mesh = make_mesh({n})\n"
         f"n_pad = 131072 * {n}\n"
         "fn = make_sharded_sliding_l1(mesh, n_pad, 4, 20480)\n"
@@ -262,19 +207,6 @@ def main() -> int:
     t2 = min(run_procs(2), run_procs(2))
     proc_eff = t1 / (2 * t2)
 
-    # the SHIPPING engine (hybrid: real-TPU device leg + native host
-    # leg), 2 processes SHARING the one available chip (VERDICT r3 #3).
-    # With one chip this measures contention, not chip scaling — the
-    # per-chip scaling evidence is the host-leg table above plus the
-    # DP-shard table below; a genuine 2-chip row needs 2 chips.
-    hyb = None
-    if _tpu_available():
-        h1 = min(run_procs(1, "hybrid", "tpu"),
-                 run_procs(1, "hybrid", "tpu"))
-        h2 = min(run_procs(2, "hybrid", "tpu"),
-                 run_procs(2, "hybrid", "tpu"))
-        hyb = (h1, h2, h1 / (2 * h2))
-
     # DP-path (ShardedWrapDPBatcher-style shard_map) scaling
     dp = {n: run_dp_sharded(n) for n in (1, 2, 4, 8)}
 
@@ -294,11 +226,6 @@ def main() -> int:
                   "reads_per_s_1p": round(N_READS / t1, 2),
                   "reads_per_s_2p": round(N_READS / t2, 2),
                   "efficiency": round(proc_eff, 3)},
-        "procs_hybrid_1chip": None if hyb is None else {
-            "t1": round(hyb[0], 2), "t2": round(hyb[1], 2),
-            "reads_per_s_1p": round(N_READS / hyb[0], 2),
-            "reads_per_s_2p": round(N_READS / hyb[1], 2),
-            "throughput_ratio": round(hyb[0] / hyb[1], 3)},
         "dp_sharded": {str(n): {"t_wall": round(dp[n]["t_wall"], 4),
                                 "t_shard": round(dp[n]["t_shard"], 4),
                                 "shard_eff": round(
@@ -332,29 +259,13 @@ def main() -> int:
             f"| 2 | {result['procs']['t2']} | "
             f"{result['procs']['reads_per_s_2p']} | "
             f"{result['procs']['efficiency']} |\n\n"
-            + ("" if result["procs_hybrid_1chip"] is None else (
-            "Same protocol with the SHIPPING engine (hybrid: real-TPU "
-            "device leg + native host leg), both processes sharing the "
-            "ONE available chip — a contention measurement, not chip "
-            "scaling (each real host would own its chips; the per-chip "
-            "evidence is the host-leg table and the DP-shard table):"
-            "\n\n"
-            "| processes | wall s | reads/s | throughput vs 1p |\n"
-            "|---|---|---|---|\n"
-            f"| 1 | {result['procs_hybrid_1chip']['t1']} | "
-            f"{result['procs_hybrid_1chip']['reads_per_s_1p']} | 1.00 |\n"
-            "| 2 (1 chip shared) | "
-            f"{result['procs_hybrid_1chip']['t2']} | "
-            f"{result['procs_hybrid_1chip']['reads_per_s_2p']} | "
-            f"{result['procs_hybrid_1chip']['throughput_ratio']} |\n\n"))
             + "## 2. DP-path scaling (ShardedWrapDPBatcher axis)\n\n"
             "A fixed 2048-job wrap-DP chunk (unit 100, rep 2048) "
             "sharded over the 'dp' mesh axis exactly as "
             "`ShardedWrapDPBatcher` shards every chunk; engine = the "
             "pure-XLA counts kernel (real compiled code on CPU "
             "devices).  `t_shard` is ONE device executing ONE local "
-            "shard (B/n jobs) measured without core time-sharing — the "
-            "per-device compute time VERDICT r3 #3 asked for; "
+            "shard (B/n jobs) measured without core time-sharing; "
             "`shard_eff` = t_shard(1) / (n * t_shard(n)) shows whether "
             "splitting the batch costs per-device efficiency (padding "
             "quantization).  `t_wall` is the full sharded dispatch, "
@@ -396,7 +307,5 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--worker":
         sys.exit(worker(int(sys.argv[2]), int(sys.argv[3]),
-                        int(sys.argv[4]), sys.argv[5],
-                        sys.argv[6] if len(sys.argv) > 6 else "host",
-                        sys.argv[7] if len(sys.argv) > 7 else "cpu"))
+                        int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -26,8 +26,8 @@ def main() -> int:
     )
     assert jax.process_count() == n, jax.process_count()
 
-    from mtr_tpu.config import MTRConfig
-    from mtr_tpu.parallel.distributed import run_file_sharded
+    from mtr.config import MTRConfig
+    from mtr.parallel.distributed import run_file_sharded
 
     run_file_sharded(
         fasta, prefix, MTRConfig(backend="host"),

@@ -10,10 +10,10 @@ import io
 
 import pytest
 
-from mtr_tpu.testutil.rand_seq import write_fasta
-from mtr_tpu.testutil.evaluators import count_match, comp_dp
-from mtr_tpu.config import MTRConfig
-from mtr_tpu.pipeline import run_file
+from mtr.testutil.rand_seq import write_fasta
+from mtr.testutil.evaluators import count_match, comp_dp
+from mtr.config import MTRConfig
+from mtr.pipeline import run_file
 
 
 def run_sweep(unit_len, freq, n_reads, seed=777):

@@ -1,7 +1,7 @@
 """Chaining quirk unit tests (chaining.cpp semantics)."""
 
-from mtr_tpu.chaining import chain_records
-from mtr_tpu.records import RepeatRecord
+from mtr.chaining import chain_records
+from mtr.records import RepeatRecord
 
 
 def rec(start, end, matches):

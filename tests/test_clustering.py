@@ -1,9 +1,9 @@
 """Cross-read clustering stage (legacy phase 2, SURVEY.md 2.12)."""
 
-from mtr_tpu.clustering import cluster_repeats
-from mtr_tpu.records import RepeatRecord
-from mtr_tpu.oracle.dbg import freq_2mer_array
-from mtr_tpu.utils.encoding import encode_bases
+from mtr.clustering import cluster_repeats
+from mtr.records import RepeatRecord
+from mtr.oracle.dbg import freq_2mer_array
+from mtr.utils.encoding import encode_bases
 
 
 def mk(unit: str, n_units=10, matches=None):
@@ -46,7 +46,7 @@ def test_device_near_matrix_matches_numpy():
     # the jitted distance kernel (used when G >= _DEVICE_MIN_GROUPS) must
     # agree with the NumPy reduction bit-for-bit
     import numpy as np
-    from mtr_tpu.clustering import _near_matrix, _device_near_fn
+    from mtr.clustering import _near_matrix, _device_near_fn
 
     rng = np.random.default_rng(3)
     n = 300

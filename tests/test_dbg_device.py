@@ -4,10 +4,10 @@ codes, per-base scores, direction semantics)."""
 
 import numpy as np
 
-from mtr_tpu.oracle.dbg import walk_candidates, query_kmer_values, CountTable
-from mtr_tpu.ops.dbg_device import dbg_walk_device_batch, _stage_a, _v_bucket
-from mtr_tpu.records import RepeatRecord
-from mtr_tpu.utils.encoding import encode_bases
+from mtr.oracle.dbg import walk_candidates, query_kmer_values, CountTable
+from mtr.ops.dbg_device import dbg_walk_device_batch, _stage_a, _v_bucket
+from mtr.records import RepeatRecord
+from mtr.utils.encoding import encode_bases
 
 
 def oracle_result(org, L, qs, qe, k):

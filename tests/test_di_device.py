@@ -2,13 +2,13 @@
 
 import numpy as np
 
-from mtr_tpu.io.fasta import iter_fasta
-from mtr_tpu.oracle.arena import Arena
-from mtr_tpu.oracle.directional_index import (
+from mtr.io.fasta import iter_fasta
+from mtr.oracle.arena import Arena
+from mtr.oracle.directional_index import (
     fill_directional_index_with_end,
     sliding_l1,
 )
-from mtr_tpu.ops.directional_index import sliding_l1_device, di_manhattan_device
+from mtr.ops.directional_index import sliding_l1_device, di_manhattan_device
 
 FASTA = "/root/reference/test_multiple_TRs/data/3_5.fasta"
 
@@ -38,11 +38,11 @@ def test_full_di_ranges_match():
 
 
 def test_pearson_device_matches_oracle():
-    from mtr_tpu.oracle.directional_index import (
+    from mtr.oracle.directional_index import (
         init_input_w_rand,
         di_pearson,
     )
-    from mtr_tpu.ops.directional_index import di_pearson_device
+    from mtr.ops.directional_index import di_pearson_device
 
     read = next(iter_fasta(FASTA))
     arena = Arena()
@@ -57,7 +57,7 @@ def test_pearson_device_matches_oracle():
 
 
 def test_full_di_pearson_ranges_match():
-    from mtr_tpu.ops.directional_index import di_pearson_device
+    from mtr.ops.directional_index import di_pearson_device
 
     read = next(iter_fasta(FASTA))
     a1, a2 = Arena(), Arena()
@@ -78,8 +78,8 @@ def test_full_di_pearson_ranges_match():
 def test_sharded_sliding_l1_8dev_matches_oracle():
     # the position-sharded halo-exchange stencil on the virtual 8-device
     # CPU mesh must agree with the host oracle exactly (SURVEY.md 2.13)
-    from mtr_tpu.parallel.mesh import make_mesh
-    from mtr_tpu.ops.directional_index import sliding_l1_sharded
+    from mtr.parallel.mesh import make_mesh
+    from mtr.ops.directional_index import sliding_l1_sharded
 
     rng = np.random.default_rng(7)
     k = 3

@@ -5,9 +5,9 @@ import io
 
 import pytest
 
-from mtr_tpu.config import MTRConfig
-from mtr_tpu.pipeline import run_file
-from mtr_tpu.parallel.distributed import run_file_sharded, merge_outputs
+from mtr.config import MTRConfig
+from mtr.pipeline import run_file
+from mtr.parallel.distributed import run_file_sharded, merge_outputs
 
 FASTA = "/root/reference/test_multiple_TRs/data/2_5_10_20_set.fasta"
 

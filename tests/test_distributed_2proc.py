@@ -1,4 +1,4 @@
-"""REAL two-process jax.distributed run (VERDICT r2 missing #4).
+"""REAL two-process jax.distributed run.
 
 Two OS processes initialize jax.distributed against a local coordinator,
 each runs run_file_sharded on its round-robin read shard, and each
@@ -42,9 +42,9 @@ def test_two_process_jax_distributed(tmp_path):
         out, err = p.communicate(timeout=300)
         assert p.returncode == 0, err.decode()[-2000:]
 
-    from mtr_tpu.config import MTRConfig
-    from mtr_tpu.parallel.distributed import merge_outputs
-    from mtr_tpu.pipeline import run_file
+    from mtr.config import MTRConfig
+    from mtr.parallel.distributed import merge_outputs
+    from mtr.pipeline import run_file
 
     merged = io.StringIO()
     merge_outputs(prefix, 2, merged)

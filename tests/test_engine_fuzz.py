@@ -11,10 +11,10 @@ import os
 
 import pytest
 
-from mtr_tpu.config import MTRConfig
-from mtr_tpu.pipeline import run_file
-from mtr_tpu.oracle.pipeline import run_file_oracle
-from mtr_tpu.testutil.rand_seq import write_fasta
+from mtr.config import MTRConfig
+from mtr.pipeline import run_file
+from mtr.oracle.pipeline import run_file_oracle
+from mtr.testutil.rand_seq import write_fasta
 
 
 def _oracle(fasta: str) -> str:
@@ -72,10 +72,10 @@ def test_long_read_beyond_reference_overflow(tmp_path):
 def test_find_repeats_api():
     """Library entry point mirrors the CLI (verified against the
     reference binary on the same input)."""
-    import mtr_tpu
+    import mtr
 
     seq = "ACGT" * 50 + "GATTACA" * 30 + "TTGCA" * 40
-    res = mtr_tpu.find_repeats([("myread", seq), ("norep", "ACGTTGCAAT" * 20)])
+    res = mtr.find_repeats([("myread", seq), ("norep", "ACGTTGCAAT" * 20)])
     assert len(res) == 2
     assert [r.string for r in res[0]] == ["GATTACA"]
     assert res[0][0].rep_start + 1 == 201 and res[0][0].rep_end + 1 == 410

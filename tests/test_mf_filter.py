@@ -6,15 +6,15 @@ reference (consensus.c:532)."""
 import numpy as np
 import pytest
 
-import mtr_tpu.ops.mf_filter as MF
-from mtr_tpu.ops.mf_filter import walked_mask, MIN_NUM_FREQ_UNIT
-from mtr_tpu.oracle.dbg import query_kmer_values
+import mtr.ops.mf_filter as MF
+from mtr.ops.mf_filter import walked_mask, MIN_NUM_FREQ_UNIT
+from mtr.oracle.dbg import query_kmer_values
 
 
 @pytest.fixture(autouse=True)
 def small_chunks(monkeypatch):
-    # production chunk rows are sized for the TPU (131k); padding every
-    # CPU test call to that burns ~a minute for nothing
+    # production chunk rows are sized for an accelerator (131k);
+    # padding every CPU test call to that burns ~a minute for nothing
     monkeypatch.setattr(
         MF, "_Q_CHUNK", {64: 512, 256: 512, 1024: 512})
 

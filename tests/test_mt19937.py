@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from mtr_tpu.utils.mt19937 import MT19937
+from mtr.utils.mt19937 import MT19937
 
 
 def test_seed_5489_known_values():

@@ -14,8 +14,8 @@ import io
 import pytest
 import os
 
-from mtr_tpu.config import MTRConfig
-from mtr_tpu.pipeline import run_file
+from mtr.config import MTRConfig
+from mtr.pipeline import run_file
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -37,8 +37,8 @@ def test_multiread_host_parity():
 
 def test_multiread_hybrid_parity():
     """Hybrid split (big jobs -> device path, small -> host) must not
-    change output; on the CPU test mesh the device leg runs the same
-    Pallas kernel in interpret mode."""
+    change output; on the CPU test mesh the device leg runs the XLA
+    counts engine."""
     with open(f"{GOLDEN}/multi20_100x10.out") as f:
         assert _run("hybrid") == f.read()
 

@@ -2,7 +2,7 @@
 
 The reference's `rand_multi_seq` is referenced by
 test_multiple_TRs/data/gen.sh:7 but not shipped; ours
-(mtr_tpu/testutil/rand_multi_seq.py) reverse-engineers the *_set.txt
+(mtr/testutil/rand_multi_seq.py) reverse-engineers the *_set.txt
 format.  This test pins three facts:
 
 1. the generator is deterministic (seed 777 reproduces the committed
@@ -21,9 +21,9 @@ import io
 import os
 import tempfile
 
-from mtr_tpu.config import MTRConfig
-from mtr_tpu.pipeline import run_file
-from mtr_tpu.testutil import rand_multi_seq
+from mtr.config import MTRConfig
+from mtr.pipeline import run_file
+from mtr.testutil import rand_multi_seq
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 REF_SET = "/root/reference/test_multiple_TRs/data/2_5_10_20_set.txt"

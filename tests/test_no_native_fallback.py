@@ -12,10 +12,10 @@ import os
 import numpy as np
 import pytest
 
-from mtr_tpu import native
-from mtr_tpu.config import MTRConfig
-from mtr_tpu.pipeline import DPJob, HostDPBatcher, make_batcher
-from mtr_tpu.utils.encoding import encode_bases
+from mtr import native
+from mtr.config import MTRConfig
+from mtr.pipeline import DPJob, HostDPBatcher, make_batcher
+from mtr.utils.encoding import encode_bases
 
 
 FIXTURE = "/root/reference/test_multiple_TRs/data/2_5_10_20_set.fasta"
@@ -77,7 +77,7 @@ def test_run_file_without_native(monkeypatch):
     `auto` must pick a working engine and produce the same output."""
     if not os.path.exists(FIXTURE):
         pytest.skip("reference fixture unavailable")
-    from mtr_tpu.pipeline import run_file
+    from mtr.pipeline import run_file
 
     cfg = MTRConfig(backend="auto")
     ref = io.StringIO()
@@ -97,11 +97,11 @@ def test_auto_engine_without_native(monkeypatch):
     import jax
 
     if jax.default_backend() == "cpu":
-        from mtr_tpu.pipeline import WrapDPBatcher
+        from mtr.pipeline import WrapDPBatcher
 
         assert isinstance(eng, WrapDPBatcher)
     else:
-        from mtr_tpu.pipeline import HybridDPBatcher
+        from mtr.pipeline import HybridDPBatcher
 
         assert isinstance(eng, HybridDPBatcher)
         assert eng.cell_threshold == 0

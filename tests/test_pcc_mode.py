@@ -5,8 +5,8 @@ import os
 
 import pytest
 
-from mtr_tpu.config import MTRConfig
-from mtr_tpu.oracle.pipeline import run_file_oracle
+from mtr.config import MTRConfig
+from mtr.oracle.pipeline import run_file_oracle
 
 DATA = "/root/reference/test_multiple_TRs/data"
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")

@@ -1,4 +1,4 @@
-"""Device pipeline end-to-end on the CPU mesh (pallas interpret mode):
+"""Device pipeline end-to-end on the CPU mesh (XLA counts engine):
 must byte-match the golden reference output, and resume must be exact."""
 
 import io
@@ -6,8 +6,8 @@ import os
 
 import pytest
 
-from mtr_tpu.config import MTRConfig
-from mtr_tpu.pipeline import run_file
+from mtr.config import MTRConfig
+from mtr.pipeline import run_file
 
 DATA = "/root/reference/test_multiple_TRs/data"
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")

@@ -1,4 +1,4 @@
-"""Scaling floors (VERDICT r2 missing #1): the embarrassingly-parallel
+"""Scaling floors: the embarrassingly-parallel
 read axis must actually scale.  Floors are deliberately loose — this
 2-core container time-shares everything — the published numbers live in
 SCALING.md (scripts/scaling_bench.py)."""

@@ -11,10 +11,10 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-import mtr_tpu.ops.directional_index as di_ops  # noqa: E402
-import mtr_tpu.pipeline as P  # noqa: E402
-from mtr_tpu.config import MTRConfig  # noqa: E402
-from mtr_tpu.testutil.rand_seq import write_fasta  # noqa: E402
+import mtr.ops.directional_index as di_ops  # noqa: E402
+import mtr.pipeline as P  # noqa: E402
+from mtr.config import MTRConfig  # noqa: E402
+from mtr.testutil.rand_seq import write_fasta  # noqa: E402
 
 
 @pytest.mark.skipif(jax.device_count() < 8, reason="needs 8-device mesh")

@@ -10,10 +10,10 @@ import subprocess
 
 import pytest
 
-from mtr_tpu.config import MTRConfig
-from mtr_tpu.pipeline import run_file
-from mtr_tpu.testutil.structured_errors import write_structured_fasta
-from mtr_tpu.testutil.evaluators import count_match
+from mtr.config import MTRConfig
+from mtr.pipeline import run_file
+from mtr.testutil.structured_errors import write_structured_fasta
+from mtr.testutil.evaluators import count_match
 
 REF_BIN = "/tmp/refbuild/mTR"
 
@@ -61,7 +61,7 @@ def test_structured_accuracy_floor(tmp_path):
 
 
 def _gen_artifacts(tmp_path, n_reads=20, seed=31):
-    """Extended Badread artifact set (VERDICT r3 #8): junk reads,
+    """Extended Badread artifact set: junk reads,
     uniform-random reads, chimeras, and ligation adapters."""
     fa = str(tmp_path / "artifacts.fasta")
     units = str(tmp_path / "artifacts.units")
@@ -93,7 +93,7 @@ def test_artifact_accuracy_floors(tmp_path):
     """Unit recovery on the artifact set: plain TR reads must keep
     their exact-cyclic-match floor despite adapters; chimera reads must
     recover at least one of their two planted units most of the time."""
-    from mtr_tpu.testutil.evaluators import parse_records
+    from mtr.testutil.evaluators import parse_records
 
     fa, units = _gen_artifacts(tmp_path, n_reads=24, seed=12)
     out = io.StringIO()

@@ -1,4 +1,4 @@
-"""Wave-based suppression pruning (VERDICT r3 #1b): opt-in scheduling
+"""Wave-based suppression pruning: opt-in scheduling
 that skips walks/DP for ranges the acceptance replay will suppress
 (handle_one_read.c:178-188).  Output must be byte-identical to full
 speculation, and the pruning must actually engage (counters).
@@ -9,28 +9,28 @@ import os
 
 import pytest
 
-from mtr_tpu.config import MTRConfig
-from mtr_tpu.pipeline import run_file
-from mtr_tpu.utils.timers import TIMERS
+from mtr.config import MTRConfig
+from mtr.pipeline import run_file
+from mtr.utils.timers import TIMERS
 
 FIXTURE = "/root/reference/test_multiple_TRs/data/2_5_10_20_set.fasta"
 
 
 @pytest.fixture
 def waves_env():
-    os.environ["MTR_TPU_WAVES"] = "1"
+    os.environ["MTR_WAVES"] = "1"
     yield
-    os.environ.pop("MTR_TPU_WAVES", None)
+    os.environ.pop("MTR_WAVES", None)
 
 
 def test_wave_pruning_byte_identical(waves_env):
     if not os.path.exists(FIXTURE):
         pytest.skip("reference fixture unavailable")
     cfg = MTRConfig(backend="host")
-    os.environ.pop("MTR_TPU_WAVES", None)
+    os.environ.pop("MTR_WAVES", None)
     full = io.StringIO()
     run_file(FIXTURE, cfg, full)
-    os.environ["MTR_TPU_WAVES"] = "1"
+    os.environ["MTR_WAVES"] = "1"
     TIMERS.counters.clear()
     waved = io.StringIO()
     run_file(FIXTURE, cfg, waved)
@@ -53,7 +53,7 @@ def test_wave_counters_account_for_all_ranges(waves_env):
 
 
 def test_waves_policy():
-    from mtr_tpu.pipeline import waves_policy
+    from mtr.pipeline import waves_policy
 
     # walk-bound regime (many-core host feeding one chip): waves on
     assert waves_policy(3.0, 0.1)
@@ -65,11 +65,11 @@ def test_waves_policy():
 
 
 def test_waves_self_enable_when_walk_bound(monkeypatch, tmp_path):
-    """Adaptive policy (VERDICT r4 #6): a batcher reporting zero
+    """Adaptive policy: a batcher reporting zero
     device-idle wait (walk-bound regime) must flip wave pruning on by
     itself — counters show pruning engaged, output stays identical."""
-    from mtr_tpu.pipeline import HostDPBatcher
-    from mtr_tpu.testutil.rand_seq import write_fasta
+    from mtr.pipeline import HostDPBatcher
+    from mtr.testutil.rand_seq import write_fasta
 
     fasta = str(tmp_path / "multi.fasta")
     write_fasta(fasta, str(tmp_path / "u.txt"),
@@ -82,7 +82,7 @@ def test_waves_self_enable_when_walk_bound(monkeypatch, tmp_path):
     monkeypatch.setattr(HostDPBatcher, "pop_dev_idle",
                         lambda self: 0.0, raising=False)
     # make the measured walk time register as > the policy's floor
-    import mtr_tpu.pipeline as P
+    import mtr.pipeline as P
     monkeypatch.setattr(
         P, "waves_policy",
         lambda walk_s, idle: walk_s is not None and idle == 0.0)

@@ -4,8 +4,8 @@ bit-identical counts/coordinates for random batched queries."""
 import numpy as np
 import pytest
 
-from mtr_tpu.oracle.wrap_dp import wrap_dp_fill, traceback
-from mtr_tpu.ops.wrap_dp import (
+from mtr.oracle.wrap_dp import wrap_dp_fill, traceback
+from mtr.ops.wrap_dp import (
     get_wrap_dp,
     traceback_from_moves,
 )

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from mtr_tpu.oracle.wrap_dp import wrap_dp_fill, traceback, wrap_around_dp_sub
-from mtr_tpu.records import RepeatRecord
-from mtr_tpu.utils.encoding import decode_bases
+from mtr.oracle.wrap_dp import wrap_dp_fill, traceback, wrap_around_dp_sub
+from mtr.records import RepeatRecord
+from mtr.utils.encoding import decode_bases
 
 
 def literal_fill(rep, unit, mg, mp, ip):

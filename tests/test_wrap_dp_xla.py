@@ -1,17 +1,15 @@
-"""Pure-XLA counts engine (ops/wrap_dp_xla.py): bit-identical to the
-host oracle across schemes/shapes, including units past the Pallas v2
-kernel's 128 cap, and usable end-to-end via MTR_TPU_XLA_DP."""
+"""XLA counts engine (ops/wrap_dp_xla.py): bit-identical to the host
+oracle across schemes/shapes up to unit 512, and the engine behind an
+end-to-end `--backend device` run on the CPU."""
 
-import io
 import os
 
 import numpy as np
 import pytest
 
-from mtr_tpu.config import MTRConfig
-from mtr_tpu.oracle.wrap_dp import wrap_around_dp_sub
-from mtr_tpu.records import RepeatRecord
-from mtr_tpu.ops.wrap_dp_xla import make_wrap_dp_counts_xla
+from mtr.oracle.wrap_dp import wrap_around_dp_sub
+from mtr.records import RepeatRecord
+from mtr.ops.wrap_dp_xla import make_wrap_dp_counts_xla
 
 
 @pytest.mark.parametrize("u_pad,unit_lens", [(128, (2, 7, 100)),
@@ -38,7 +36,7 @@ def test_xla_counts_match_oracle(u_pad, unit_lens):
         units[q, :ul] = unit
         jobs.append((rep, unit, scheme))
     out = np.asarray(fn(scal, reps, units))
-    from mtr_tpu.utils.encoding import decode_bases
+    from mtr.utils.encoding import decode_bases
 
     for q, (rep, unit, scheme) in enumerate(jobs):
         org = np.concatenate([[0], rep]).astype(np.int64)
@@ -54,15 +52,14 @@ def test_xla_counts_match_oracle(u_pad, unit_lens):
         assert int(out[q, 5]) + 1 == rr.rep_start, (q,)
 
 
-def test_pipeline_with_xla_dp_env(monkeypatch):
-    import mtr_tpu.pipeline as P
+def test_pipeline_device_backend_golden(capsys):
+    """`--backend device` on the CPU: every counts DP on the XLA engine,
+    walks on the device DBG engine; byte-identical to the reference
+    binary's output."""
+    from mtr import cli
 
-    monkeypatch.setenv("MTR_TPU_XLA_DP", "1")
-    fasta = "/root/reference/test_multiple_TRs/data/3_5.fasta"
-    if not os.path.exists(fasta):
-        pytest.skip("reference fixtures unavailable")
-    cfg = MTRConfig(backend="device", reads_per_batch=8, use_native=False)
-    buf = io.StringIO()
-    P.run_file(fasta, cfg, buf)
-    golden = os.path.join(os.path.dirname(__file__), "golden", "3_5.out")
-    assert buf.getvalue() == open(golden).read()
+    golden = os.path.join(os.path.dirname(__file__), "golden")
+    assert cli.main(["--backend", "device",
+                     os.path.join(golden, "multi20_100x10.fasta")]) == 0
+    assert capsys.readouterr().out == open(
+        os.path.join(golden, "multi20_100x10.out")).read()
